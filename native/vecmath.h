@@ -1,5 +1,5 @@
 // Minimal column-major linear algebra for the scene compiler.
-// Conventions follow the flat-buffer contract consumed by the TPU kernels
+// Conventions follow the flat-buffer contract consumed by the JAX path tracer
 // (reference: rust-shader-tools uses glam; layouts documented in SURVEY.md §2.2).
 #pragma once
 #include <cmath>

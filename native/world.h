@@ -13,7 +13,7 @@
 
 namespace wrt {
 
-// Flat output vectors — the contract consumed by the TPU kernels
+// Flat output vectors — the contract consumed by the JAX path tracer
 // (reference render_buffers.rs; exact layouts in SURVEY.md §2.2).
 struct RenderBuffers {
   std::vector<float> vertices;        // xyzw, w=1 (post skinning)

@@ -6,10 +6,9 @@ tests pin the mean radiance of low-res renders so estimator regressions
 images. Values were recorded from the validated build (dense == bvh ==
 f64-oracle traversal) on the CPU backend the suite runs on.
 
-Coverage (VERDICT r1 item 9): all six presets — including the
-metal/glass/caustics branches (`mixed`, `special`), instancing (`mesh`) and
-the 257k-tri large-scene path (`spheres`, two-level sweep on TPU / chunked
-XLA here) — plus a textured-GLB frame (texture-array sampling) and a
+Coverage: all six presets — including the metal/glass/caustics branches
+(`mixed`, `special`), instancing (`mesh`) and the 257k-tri `spheres`
+(through the chunked XLA dense sweep here) — plus a textured-GLB frame (texture-array sampling) and a
 skinned-animation frame at t=0.5 (LBS + per-update BLAS rebuild).
 """
 

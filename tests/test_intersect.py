@@ -87,3 +87,49 @@ def test_inactive_lanes_do_not_hit():
     inst = np.asarray(hit.inst_idx)
     assert (inst[::2] >= 0).all()
     assert (inst[1::2] == -1).all()
+
+
+def _big_grid_obj(n=93):
+    """A bumpy (n-1)^2 * 2-triangle grid: 16,928 triangles for n = 93."""
+    verts, faces = [], []
+    for j in range(n):
+        for i in range(n):
+            verts.append((i / (n - 1) * 2 - 1, ((i * 7 + j * 3) % 5) * 0.02,
+                          j / (n - 1) * 2 - 1))
+    for j in range(n - 1):
+        for i in range(n - 1):
+            a = j * n + i + 1
+            faces.append((a, a + 1, a + n))
+            faces.append((a + 1, a + n + 1, a + n))
+    return "".join(f"v {x} {y} {z}\n" for x, y, z in verts) + \
+        "".join(f"f {a} {b} {c}\n" for a, b, c in faces)
+
+
+def test_large_scene_takes_the_bvh_walk_and_matches_oracle():
+    """Above DENSE_MAX_TRIS world triangles the renderer takes the BVH path;
+    its walk agrees with the brute-force oracle there."""
+    from webgpu_raytracer_tpu import RenderConfig, Renderer
+    from webgpu_raytracer_tpu.ops.api import DENSE_MAX_TRIS
+
+    r = Renderer("viewer", obj_source=_big_grid_obj(),
+                 config=RenderConfig(width=8, height=8, max_depth=2))
+    assert r._world_tri_count() > DENSE_MAX_TRIS
+    assert r.backend == "bvh" and r.wt is None
+
+    rng = np.random.default_rng(3)
+    ro, rd = random_rays(rng, 96, lo=-1.0, hi=1.0)
+    ro[:, 1] = 2.0
+    rd[:, 1] = -np.abs(rd[:, 1]) - 0.5
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    hit = intersect_closest(r.scene, jnp.asarray(ro), jnp.asarray(rd))
+    t_ref, tri_ref, inst_ref = intersect_brute(
+        r.world, ro.astype(np.float64), rd.astype(np.float64))
+    got = np.asarray(hit.inst_idx) >= 0
+    assert (got == (inst_ref >= 0)).mean() > 0.99
+    both = got & (inst_ref >= 0)
+    assert both.sum() > 50
+    np.testing.assert_allclose(np.asarray(hit.t)[both], t_ref[both],
+                               rtol=2e-3, atol=2e-4)
+
+    r.render_frame()
+    assert np.isfinite(r.radiance()).all()

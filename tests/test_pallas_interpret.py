@@ -1,16 +1,10 @@
-"""Single-tile Pallas kernels under interpret mode vs the XLA reference.
+"""The dense sweep kernel under interpret mode inside fori_loop + jit.
 
-VERDICT r1 item 4a: the flagship kernels (`_kernel`, `_fetch_kernel` in
-ops/pallas_dense.py) previously had zero automated coverage — every CI run
-exercised only the XLA fallback, and round 1 shipped a silent wrong-hit
-regression that only a human render caught. These tests run the REAL kernel
-bodies via `pl.pallas_call(interpret=True)` on the CPU suite, wrapped in a
-`lax.fori_loop` under jit, which is exactly the context (loop-carried trace
-inside jit) where round 1's XLA excess-precision miscompile appeared
-(tools/README.md post-mortem).
-
-t tolerance 2e-3 matches tests/test_two_level.py: the CPU backend rounds
-the bf16x3 split dot differently than the MXU.
+The kernel body (ops/sweep._sweep_kernel) runs through
+`pl.pallas_call(interpret=True)` inside a `lax.fori_loop` under jit: a
+loop-carried trace inside jit is the context in which XLA's excess-precision
+rewrites can change a kernel's arithmetic, so the test pins it there. The
+tolerances are those of tests/sweep_checks.py.
 """
 
 import numpy as np
@@ -19,9 +13,11 @@ import jax.numpy as jnp
 import pytest
 
 from webgpu_raytracer_tpu.models.native import NativeWorld
+from webgpu_raytracer_tpu.ops import sweep
 from webgpu_raytracer_tpu.ops.dense import dense_closest, dense_shadow
-from webgpu_raytracer_tpu.ops.pallas_dense import _run, pallas_fetch_t
 from webgpu_raytracer_tpu.render.worldtris import build_world_tris
+
+from tests.sweep_checks import check_closest, check_occluded
 
 
 @pytest.fixture(scope="module")
@@ -29,18 +25,16 @@ def cornell_wt():
     world = NativeWorld("cornell")
     world.update_camera(64, 64)
     wt = build_world_tris(world)
-    assert wt.featk3.shape[0] == 1, "cornell must stay single-tile"
+    assert not sweep.multi_chunk(wt), "cornell must stay one chunk"
     return wt
 
 
 def _rays(R=2048):
     rng = np.random.default_rng(3)
-    ro = tuple(jnp.asarray(rng.uniform(-0.9, 0.9, size=R), jnp.float32)
-               for _ in range(3))
-    rd = tuple(jnp.asarray(rng.normal(size=R), jnp.float32)
-               for _ in range(3))
-    act = jnp.arange(R) % 5 != 0
-    tmax = jnp.where(jnp.arange(R) % 3 == 0, 1.5, 1e30)
+    ro = rng.uniform(-0.9, 0.9, size=(R, 3)).astype(np.float32)
+    rd = rng.normal(size=(R, 3)).astype(np.float32)
+    act = np.arange(R) % 5 != 0
+    tmax = np.where(np.arange(R) % 3 == 0, 1.5, 1e30).astype(np.float32)
     return ro, rd, act, tmax
 
 
@@ -48,80 +42,28 @@ def test_single_tile_kernel_in_jitted_loop(cornell_wt):
     """Closest-hit + rows + shadow, interpret mode, inside fori_loop+jit."""
     wt = cornell_wt
     ro, rd, act, tmax = _rays()
-    t_ref, i_ref = dense_closest(wt, jnp.stack(ro, 1), jnp.stack(rd, 1),
+    comp = lambda a: (a[:, 0], a[:, 1], a[:, 2])
+    t_ref, i_ref = dense_closest(wt, jnp.asarray(ro), jnp.asarray(rd),
                                  t_max=tmax, active=act)
 
     @jax.jit
     def looped(ro, rd):
         def body(i, acc):
-            t, idx, rows = _run(wt, ro, rd, tmax, act, 1e-3, False, True,
-                                interpret=True)
-            return (t, idx, rows)
+            return sweep.kernel_closest(wt, comp(ro), comp(rd), t_max=tmax,
+                                        active=act, rows_from=0,
+                                        interpret=True)
         return jax.lax.fori_loop(0, 2, body, (
             jnp.zeros_like(tmax), jnp.zeros(tmax.shape, jnp.int32),
             jnp.zeros((wt.shade_table.shape[1], tmax.shape[0]))))
 
-    t2, i2, rows = looped(ro, rd)
-    t2, i2 = np.asarray(t2), np.asarray(i2)
-    t_ref, i_ref = np.asarray(t_ref), np.asarray(i_ref)
-    hit = i_ref >= 0
-    assert ((i2 >= 0) == hit).all()
-    np.testing.assert_allclose(t2[hit], t_ref[hit], rtol=2e-3, atol=2e-4)
+    t2, i2, rows = looped(jnp.asarray(ro), jnp.asarray(rd))
+    rep = check_closest(wt, ro, rd, t2, i2, t_ref, i_ref, rows)
+    assert rep["ok"], str(rep)
 
-    # Disagreeing winners must be GENUINE near-ties: recompute both
-    # triangles' f64 Moller-Trumbore hit distances for the lane's actual ray
-    # and require them to coincide within the bf16x3-split tolerance. Any
-    # non-tie winner flip (a real ordering regression) fails here — no
-    # disagreement budget (cornell's overlapping coplanar wall quads are the
-    # only legitimate source).
-    disa = np.nonzero(hit & (i2 != i_ref))[0]
-    if disa.size:
-        v0 = np.asarray(wt.v0, np.float64)
-        e1 = np.asarray(wt.e1, np.float64)
-        e2 = np.asarray(wt.e2, np.float64)
-        ron = np.stack([np.asarray(c, np.float64) for c in ro], 1)[disa]
-        rdn = np.stack([np.asarray(c, np.float64) for c in rd], 1)[disa]
-
-        def mt_t(tris):
-            s = ron - v0[tris]
-            h = np.cross(rdn, e2[tris])
-            a = np.einsum("ij,ij->i", e1[tris], h)
-            q = np.cross(s, e1[tris])
-            return np.einsum("ij,ij->i", e2[tris], q) / a
-
-        t_a = mt_t(i_ref[disa])
-        t_b = mt_t(i2[disa])
-        np.testing.assert_allclose(t_b, t_a, rtol=2e-3, atol=2e-4,
-                                   err_msg="non-tie winner flip")
-
-    # winner rows reproduce shade-table rows exactly (the one-hot bf16x3
-    # fetch is bit-exact by construction)
-    st = np.asarray(wt.shade_table)
-    rows = np.asarray(rows)
-    sel = hit & (i2 == i_ref)
-    np.testing.assert_array_equal(rows[:, sel].T, st[i2[sel]])
-
-    occ_ref = np.asarray(dense_shadow(wt, jnp.stack(ro, 1),
-                                      jnp.stack(rd, 1), t_max=tmax,
-                                      active=act))
-    occ2 = np.asarray(_run(wt, ro, rd, tmax, act, 1e-3, True, False,
-                           interpret=True))
-    assert (occ_ref == occ2).all()
-
-
-def test_fetch_kernel_in_jitted_loop(cornell_wt):
-    """_fetch_kernel (one-hot row gather) is bit-exact under fori_loop."""
-    table = cornell_wt.shade_table  # (N, 40) f32
-    n = table.shape[0]
-    rng = np.random.default_rng(5)
-    idx = jnp.asarray(rng.integers(0, n, size=4096), jnp.int32)
-
-    @jax.jit
-    def looped(idx):
-        def body(i, acc):
-            return pallas_fetch_t(table, idx + i * 0, interpret=True)
-        return jax.lax.fori_loop(
-            0, 2, body, jnp.zeros((table.shape[1], idx.shape[0])))
-
-    got = np.asarray(looped(idx)).T
-    np.testing.assert_array_equal(got, np.asarray(table)[np.asarray(idx)])
+    occ_ref = dense_shadow(wt, jnp.asarray(ro), jnp.asarray(rd), t_max=tmax,
+                           active=act)
+    occ2 = sweep.kernel_occluded(wt, comp(jnp.asarray(ro)),
+                                 comp(jnp.asarray(rd)), tmax, active=act,
+                                 interpret=True)
+    rep = check_occluded(wt, ro, rd, tmax, occ2, occ_ref)
+    assert rep["ok"], str(rep)

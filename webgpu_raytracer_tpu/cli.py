@@ -67,8 +67,8 @@ def _make_renderer(args):
 
 def cmd_render(args):
     import numpy as np
-    from PIL import Image
 
+    from .utils.png import write_png
     from .utils.profiling import FrameStats
 
     r = _make_renderer(args)
@@ -128,7 +128,7 @@ def cmd_render(args):
     if pending is not None:
         r.bridge.wait()
     img = r.present()
-    Image.fromarray(img).save(args.output)
+    write_png(args.output, img)
     total = time.perf_counter() - t_start
     print(f"[render] {args.frames} frames in {total:.2f}s -> {args.output}")
     if preview is not None:
@@ -235,7 +235,7 @@ def cmd_info(args):
 def build_parser():
     p = argparse.ArgumentParser(
         prog="webgpu_raytracer_tpu",
-        description="TPU-native progressive path tracer")
+        description="progressive path tracer")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     def common(sp, record=False):

@@ -1,6 +1,6 @@
 """ctypes bridge to the native scene compiler (native/ -> lib/libscene.so).
 
-The native library is the TPU-framework analogue of the reference's Rust->WASM
+The native library is this framework's analogue of the reference's Rust->WASM
 scene compiler (reference src/world-bridge.ts + rust-shader-tools/src/lib.rs):
 it owns model parsing, animation, skinning, BLAS/TLAS builds, and emits the
 flat buffers consumed by the device kernels. Buffers are copied out of native
@@ -11,6 +11,7 @@ before transfer, src/worker/wasm-worker.ts:13-19).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 from typing import Optional
@@ -24,16 +25,24 @@ _lib = None
 
 
 def _build_library() -> None:
-    subprocess.run(["make", "-C", _NATIVE_DIR], check=True, capture_output=True)
+    """Incremental `make -C native`: rebuilds whatever a source change made
+    stale. An exclusive lock serialises concurrent first loads (parallel
+    test workers) on one checkout."""
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        res = subprocess.run(["make", "-C", _NATIVE_DIR],
+                             capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"building the native scene compiler failed:\n"
+                           f"{res.stdout}{res.stderr}")
 
 
 def load_library() -> ctypes.CDLL:
-    """Load (building if necessary) the native scene compiler."""
+    """Build (incrementally) and load the native scene compiler."""
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        _build_library()
+    _build_library()
     lib = ctypes.CDLL(os.path.abspath(_LIB_PATH))
 
     lib.wrt_world_create.restype = ctypes.c_void_p

@@ -1,9 +1,10 @@
-"""Backend dispatch: dense (MXU matmul sweep) vs bvh (masked skip-walk).
+"""Backend dispatch: dense (all-pairs sweep) vs bvh (per-ray BVH walk).
 
-`dense` is the TPU hot path for scenes up to ~16k world triangles (all
-presets except `spheres`); `bvh` is the general path for large scenes.
+`dense` is the main path for scenes up to DENSE_MAX_TRIS world triangles
+(all presets except `spheres`); `bvh` is the general path for large scenes.
 Both produce the same estimator with the same per-(pixel, frame, sample)
-RNG streams.
+RNG streams. Which sweep implementation the dense path runs (GPU kernel or
+XLA reference) is chosen by ops/sweep.on_platform, not here.
 """
 
 from __future__ import annotations
@@ -15,15 +16,8 @@ DENSE_MAX_TRIS = 16384
 
 
 def choose_backend(world_tri_count: int) -> str:
-    """On TPU the dense backend covers large scenes too: the two-level
-    culled sweep (ops/pallas_dense._run2) renders the 257k-tri `spheres`
-    at ~0.93 s/frame (512p d8) vs ~15 s for the masked BVH walk. Off-TPU
-    (tests, CPU fallbacks) large scenes keep the BVH path — the chunked XLA
-    dense sweep is O(rays x tris) without the Pallas cull."""
-    from .dense_trace import _use_pallas
-
-    if _use_pallas():
-        return "dense"
+    """The scene-size rule: the dense sweep costs O(rays x triangles), so
+    scenes above DENSE_MAX_TRIS world triangles take the BVH walk."""
     return "dense" if world_tri_count <= DENSE_MAX_TRIS else "bvh"
 
 

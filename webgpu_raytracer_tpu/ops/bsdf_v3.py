@@ -2,7 +2,7 @@
 
 Functionally identical to ops/bsdf.py (whose docstrings map each function to
 the reference kernels, Raytracer.wgsl:191-339); this is the (R,)-lanes
-version used by the dense TPU hot path. Colors are V3 as well.
+version used by the dense path. Colors are V3 as well.
 """
 
 from __future__ import annotations

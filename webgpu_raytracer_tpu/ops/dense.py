@@ -1,12 +1,11 @@
-"""Dense rays x world-triangles intersection (XLA implementation).
+"""Dense rays x world-triangles intersection: the plain XLA reference.
 
-The TPU-first replacement for per-lane BVH pointer chasing on small/medium
-scenes: the Plucker-linear intersection test (render/worldtris.py) makes the
-whole sweep a (R, 16) @ (16, 5T) matmul plus elementwise combines and a
-min-reduction — MXU + VPU work with zero gathers. Chunked over triangles with
-lax.scan to bound memory. ops/pallas_dense.py provides the VMEM-blocked
-Pallas version of the same contract for the TPU hot path; this module is the
-reference implementation and the CPU/interpret fallback.
+The Plucker-linear intersection test (render/worldtris.py) makes the whole
+sweep a (R, 16) @ (16, 5T) f32 product plus elementwise combines and a
+min-reduction, chunked over triangles with a fori_loop to bound memory. The
+products run at Precision.HIGHEST, so no GPU runs them in TF32.
+ops/sweep.py holds the GPU kernel of the same contract and chooses between
+the two; this module is the reference and the CPU implementation.
 
 Semantics match the reference's intersection (Raytracer.wgsl:443-453):
 same 1e-6 determinant epsilon (det = -n.d), boundary-inclusive barycentrics,
@@ -26,7 +25,7 @@ T_MAX = 1e30
 
 def _chunks(wt: WorldTris):
     twp = wt.v0.shape[0]
-    # Small scenes are padded to sublane multiples (< 128): one exact-size
+    # Small scenes are padded to multiples of 8 (< 128): one exact-size
     # chunk. Larger scenes are padded to 128-tile multiples.
     chunk = twp if twp < TRI_CHUNK else TRI_CHUNK
     assert twp % chunk == 0, (twp, chunk)
@@ -57,19 +56,14 @@ def _chunk_result(rayf, feats, twp, k, chunk_size=TRI_CHUNK):
     return t, ok
 
 
-def _use_pallas() -> bool:
-    return jax.default_backend() == "tpu"
+def multi_chunk(wt: WorldTris) -> bool:
+    """More than one TRI_CHUNK of world triangles (static)."""
+    return wt.v0.shape[0] > TRI_CHUNK
 
 
 def dense_closest(wt: WorldTris, ro, rd, t_min=1e-3, t_max=T_MAX,
-                  active=None, tune=None):
+                  active=None):
     """Closest hit. Returns (t, wt_idx) with wt_idx == -1 on miss."""
-    if _use_pallas():
-        from .pallas_dense import pallas_closest
-        from .tune import DEFAULT_TUNE
-
-        return pallas_closest(wt, ro, rd, t_min=t_min, t_max=t_max,
-                              active=active, tune=tune or DEFAULT_TUNE)
     R = ro.shape[0]
     if active is None:
         active = jnp.ones(R, bool)
@@ -98,15 +92,8 @@ def dense_closest(wt: WorldTris, ro, rd, t_min=1e-3, t_max=T_MAX,
     return best_t, best_i
 
 
-def dense_shadow(wt: WorldTris, ro, rd, t_max, t_min=1e-3, active=None,
-                 tune=None):
+def dense_shadow(wt: WorldTris, ro, rd, t_max, t_min=1e-3, active=None):
     """Any-hit occlusion. Returns bool (R,)."""
-    if _use_pallas():
-        from .pallas_dense import pallas_shadow
-        from .tune import DEFAULT_TUNE
-
-        return pallas_shadow(wt, ro, rd, t_max=t_max, t_min=t_min,
-                             active=active, tune=tune or DEFAULT_TUNE)
     R = ro.shape[0]
     if active is None:
         active = jnp.ones(R, bool)

@@ -1,14 +1,13 @@
-"""Path tracing over the dense world-triangle backend (the TPU hot path).
+"""Path tracing over the dense world-triangle backend (the main path).
 
 Same estimator and semantic contract as ops/trace.py (which documents the
-mapping to reference Raytracer.wgsl) but restructured for the TPU's 8x128
-vector unit:
-- intersection = the Plucker matmul sweep (ops/pallas_dense.py transposed
-  kernels; ops/dense.py XLA fallback on CPU)
+mapping to reference Raytracer.wgsl), over world-space triangle tables:
+- intersection = the dense closest-hit / any-hit sweeps (ops/sweep.py: the
+  GPU kernel, or the XLA reference of ops/dense.py on the CPU)
 - every per-ray quantity is component-SoA: separate (R,) arrays per vector
-  component (ops/v3.py), so all elementwise work runs at full lane width
+  component (ops/v3.py)
 - shade-table rows arrive transposed (SHADE_K, R); field extraction is a
-  major-dim slice, never a relayout
+  major-dim slice
 - no instance transforms in the loop: triangles/normals/lights pre-baked to
   world space per scene update (render/worldtris.py)
 
@@ -25,7 +24,8 @@ import jax.numpy as jnp
 
 from . import bsdf_v3 as bsdf
 from .bsdf_v3 import PI, Scatter, power_heuristic
-from .dense import T_MAX, dense_closest, dense_shadow
+from . import sweep
+from .dense import T_MAX, multi_chunk
 from .rng import init_rng, rand_n, rand_pcg
 from .tune import DEFAULT_TUNE, TuneConfig
 from .v3 import V3, cross, dot, length, max_component, normalize, splat, where
@@ -44,10 +44,6 @@ def _row_f(rowT, name, k=0):
     return rowT[lo + k]
 
 
-def _use_pallas() -> bool:
-    return jax.default_backend() == "tpu"
-
-
 def tex_level(textures, level: int):
     """Resolve a texture operand that may be a (level0, level1) pyramid.
 
@@ -57,38 +53,25 @@ def tex_level(textures, level: int):
     multi-MB latency regime. A bare array means "one level for everything"
     (tests and the BVH path pass the plain packed table).
     """
-    if isinstance(textures, (tuple, list)) and not _is_texkron(textures):
+    if isinstance(textures, (tuple, list)):
         return textures[min(level, len(textures) - 1)]
     return textures
-
-
-def _is_texkron(textures) -> bool:
-    from .fetch import TexKron
-
-    return isinstance(textures, TexKron)
 
 
 def sample_texture_v3(textures, tex_idx, u, v) -> V3:
     """Component-SoA texture sample; tex_idx < 0 returns white.
 
-    General path: the PACKED QUAD TABLE (utils/textures.pack_quad_table) —
-    one (16 B) row gather delivers all four bilinear corners as u8 codes
-    (XLA's TPU gather fast path is short-row-per-index; a 4-gather bilinear
-    costs 4x, a windowed (2,2,3) gather 400x — measured). A TexKron level
-    (the secondary-bounce mip) is served by the Kronecker one-hot fetch
-    instead — MXU matmuls against the VMEM-resident plane table, no gather
-    (ops/fetch.kron_rows). The whole sample is skipped at runtime
-    (lax.cond) when NO lane carries this map — most scenes only bind a
-    base-color texture, so metallic-roughness / normal / emissive calls
-    cost nothing.
+    The texture is the PACKED QUAD TABLE (utils/textures.pack_quad_table):
+    one (16 B) row gather delivers all four bilinear corners as u8 codes.
+    The whole sample is skipped at runtime (lax.cond) when NO lane carries
+    this map — most scenes only bind a base-color texture, so
+    metallic-roughness / normal / emissive calls cost nothing.
     """
-    kron = _is_texkron(textures)
-    tex_arr = textures.flat if kron else textures
-    K, TH, TW, _ = tex_arr.shape
+    K, TH, TW, _ = textures.shape
     has = tex_idx >= 0
     one = jnp.ones_like(u)
     if K == 1 and TH == 1 and TW == 1:
-        texel = tex_arr[0, 0, 0]
+        texel = textures[0, 0, 0]
         return V3(jnp.where(has, texel[0], 1.0) * one,
                   jnp.where(has, texel[1], 1.0) * one,
                   jnp.where(has, texel[2], 1.0) * one)
@@ -110,12 +93,7 @@ def sample_texture_v3(textures, tex_idx, u, v) -> V3:
         # occupancy before tail compaction kicks in).
         rows = (idx * TH + jnp.mod(y0, TH)) * TW + jnp.mod(x0, TW)
         rows = jnp.where(has, rows, 0)
-        if kron:
-            from .fetch import kron_rows
-
-            q = kron_rows(textures, rows)
-        else:
-            q = tex_arr.reshape(-1, 4)[rows]
+        q = textures.reshape(-1, 4)[rows]
 
         def corner(c):
             w = q[:, c]
@@ -198,8 +176,8 @@ def shade_from_rowT(textures, rowT, ro: V3, rd: V3, valid=None,
 def _mt_refine_t(rowT, ro: V3, rd: V3):
     """f32 Moller-Trumbore hit distance for a KNOWN triangle row.
 
-    The sweep's t (bf16x3 matmul) only needs to RANK candidate triangles;
-    the t actually used for hit positions is re-derived here in full f32
+    The sweep's t only needs to RANK candidate triangles; the t actually
+    used for hit positions is re-derived here in full f32
     from the winning row — the same refinement the reference's G-buffer
     seed performs by re-intersecting the identified triangle
     (Raytracer.wgsl:638-654). This also makes G-buffer-seeded bounce 0
@@ -215,25 +193,20 @@ def _mt_refine_t(rowT, ro: V3, rd: V3):
     return f * dot(e2, q)
 
 
-def intersect_and_shade(wt: WorldTris, textures, ro: V3, rd: V3, active,
-                        tune: TuneConfig = DEFAULT_TUNE,
-                        level: int = 0) -> DenseHit:
-    if _use_pallas():
-        from .pallas_dense import pallas_closest_with_row
-
-        t, idx, rowT = pallas_closest_with_row(
-            wt, (ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z), active=active,
-            tune=tune)
-    else:
-        from .v3 import to_rows
-
-        t, idx = dense_closest(wt, to_rows(ro), to_rows(rd), active=active)
-        rowT = wt.shade_table[jnp.clip(idx, 0, wt.shade_table.shape[0] - 1)].T
-        rowT = jnp.where((idx >= 0)[None, :], rowT, 0.0)
+def _hit_from_idx(wt: WorldTris, textures, t, idx, ro: V3, rd: V3,
+                  level: int) -> DenseHit:
+    rowT = sweep.shade_rows(wt, idx)
     t = jnp.where(idx >= 0, _mt_refine_t(rowT, ro, rd), t)
     tex_u, tex_v, normal, geom_n, albedo = shade_from_rowT(
         textures, rowT, ro, rd, valid=idx >= 0, level=level)
     return DenseHit(rowT, idx, t, tex_u, tex_v, normal, geom_n, albedo)
+
+
+def intersect_and_shade(wt: WorldTris, textures, ro: V3, rd: V3, active,
+                        tune: TuneConfig = DEFAULT_TUNE,
+                        level: int = 0) -> DenseHit:
+    t, idx = sweep.closest(wt, tuple(ro), tuple(rd), active, tune=tune)
+    return _hit_from_idx(wt, textures, t, idx, ro, rd, level)
 
 
 def seed_hit_from_wt_idx(wt: WorldTris, textures, wt_idx, ro: V3,
@@ -247,8 +220,7 @@ def seed_hit_from_wt_idx(wt: WorldTris, textures, wt_idx, ro: V3,
     yields radiance BIT-IDENTICAL to the traced-primary path (the traced
     path derives everything from the same rowT)."""
     idx = jnp.asarray(wt_idx, jnp.int32)
-    rowT = _fetch_rowT(wt.shade_table, idx)
-    rowT = jnp.where((idx >= 0)[None, :], rowT, 0.0)
+    rowT = sweep.shade_rows(wt, idx)
     t = jnp.where(idx >= 0, _mt_refine_t(rowT, ro, rd), jnp.float32(T_MAX))
     tex_u, tex_v, normal, geom_n, albedo = shade_from_rowT(
         textures, rowT, ro, rd, valid=idx >= 0)
@@ -258,65 +230,25 @@ def seed_hit_from_wt_idx(wt: WorldTris, textures, wt_idx, ro: V3,
 def fused_shadow_and_next(wt: WorldTris, textures, sro: V3, srd: V3, s_tmax,
                           s_active, cro: V3, crd: V3, c_active,
                           tune: TuneConfig = DEFAULT_TUNE):
-    """One traversal sweep for both per-bounce ray sets.
-
-    The NEE shadow ray and the next-bounce extension ray are batched as 2R
-    lanes in a single kernel invocation: triangle tiles stream through VMEM
-    once for both, and the fixed per-call cost is paid once. Occlusion is
-    `any hit in (t_min, t_max)` == `closest hit exists`.
+    """Both per-bounce ray sets: the NEE shadow rays (any hit below
+    s_tmax) and the next-bounce extension rays (closest hit, shaded at the
+    secondary texture level). On the GPU kernel both run as one 2R-lane
+    sweep (ops/sweep.occluded_and_closest).
 
     Returns (occluded (R,), DenseHit for the extension rays).
     """
-    if _use_pallas():
-        from .pallas_dense import pallas_closest_with_row
-
-        R = sro.x.shape[0]
-        cat = jnp.concatenate
-        ro = (cat([sro.x, cro.x]), cat([sro.y, cro.y]), cat([sro.z, cro.z]))
-        rd = (cat([srd.x, crd.x]), cat([srd.y, crd.y]), cat([srd.z, crd.z]))
-        tmax = cat([s_tmax, jnp.full(R, T_MAX, jnp.float32)])
-        act = cat([s_active, c_active])
-        t, idx, rowT = pallas_closest_with_row(wt, ro, rd, t_max=tmax,
-                                               active=act, row_from_lane=R,
-                                               tune=tune)
-        occluded = idx[:R] >= 0
-        nt, nidx, nrowT = t[R:], idx[R:], rowT  # rows cover lanes [R:] only
-        nt = jnp.where(nidx >= 0, _mt_refine_t(nrowT, cro, crd), nt)
-        tex_u, tex_v, normal, geom_n, albedo = shade_from_rowT(
-            textures, nrowT, cro, crd, valid=nidx >= 0, level=1)
-        return occluded, DenseHit(nrowT, nidx, nt, tex_u, tex_v, normal,
-                                  geom_n, albedo)
-    occluded = shadow_query(wt, sro, srd, t_max=s_tmax, active=s_active,
-                            tune=tune)
-    nhit = intersect_and_shade(wt, textures, cro, crd, c_active, tune=tune,
-                               level=1)
-    return occluded, nhit
+    occluded, t, idx = sweep.occluded_and_closest(
+        wt, tuple(sro), tuple(srd), s_tmax, s_active, tuple(cro), tuple(crd),
+        c_active, tune=tune)
+    return occluded, _hit_from_idx(wt, textures, t, idx, cro, crd, level=1)
 
 
 def shadow_query(wt: WorldTris, ro: V3, rd: V3, t_max, active,
                  tune: TuneConfig = DEFAULT_TUNE):
-    if _use_pallas():
-        from .pallas_dense import pallas_shadow
-
-        return pallas_shadow(wt, (ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z),
-                             t_max=t_max, active=active, tune=tune)
-    from .v3 import to_rows
-
-    return dense_shadow(wt, to_rows(ro), to_rows(rd), t_max=t_max,
-                        active=active)
+    return sweep.occluded(wt, tuple(ro), tuple(rd), t_max, active, tune=tune)
 
 
 def _fetch_rowT(table, idx):
-    if table.shape[0] <= 128:
-        # Small table (NEE light rows): a one-hot matmul beats a kernel
-        # launch; HIGHEST precision keeps the selection exact in f32.
-        oh = (jnp.arange(table.shape[0], dtype=jnp.int32)[:, None]
-              == idx[None, :]).astype(table.dtype)
-        return jnp.dot(table.T, oh, precision=jax.lax.Precision.HIGHEST)
-    if _use_pallas():
-        from .pallas_dense import pallas_fetch_t
-
-        return pallas_fetch_t(table, idx)
     return table[jnp.clip(idx, 0, table.shape[0] - 1)].T
 
 
@@ -386,11 +318,8 @@ def _offset_eps(p: V3):
 # ops/tune.TuneConfig.tail_stages: from bounce `depth` onward, live lanes
 # run in a static ceil(R/div) buffer (with a same-width fallback when the
 # live count overflows). Depths ascend; budgets are relative to the
-# ORIGINAL R. Swept on TPU v5e (tools/ab_band_1080p.py tail, cornell 1080p
-# d8): off 167 / d5-div8 183 / d5-div16 198 Mrays/s — post-RR liveness
-# (~2.5%) fits div16 with headroom, and the halved tail buffers nearly
-# halve the late-bounce fusion cost. tail_min_r keeps small frames (the
-# 256^2 multichip dryrun, CI-size frames) on the single-program path.
+# ORIGINAL R. tail_min_r keeps small frames (CI-size frames, small sharded
+# tiles) on the single-program path.
 
 
 def ray_color_dense(wt: WorldTris, textures, ro: V3, rd: V3, rng,
@@ -438,14 +367,11 @@ def ray_color_dense(wt: WorldTris, textures, ro: V3, rd: V3, rng,
         rays=jnp.asarray(primary_rays, f32),  # primary rays
     )
 
-    # The runtime sweep gating below only pays off on MULTI-TILE scenes
-    # under the PALLAS path, where a dead ray population still costs the
-    # full coherence-sort + cull prefix; single-tile scenes' sweeps are
-    # one cheap kernel launch and the extra lax.conds measurably hurt
-    # (cornell 1080p 195 -> 188 — round-5 bench), and the CPU fallback
-    # has no prefix at all (the conds only bloat compile time there —
-    # the 8-device dryrun wall went 20 -> 46 s).
-    gated = wt.featk3.shape[0] > 1 and _use_pallas()
+    # Runtime gating of the per-bounce sweeps (see _bounce) applies to the
+    # GPU kernel on scenes of more than one triangle chunk, where a sweep
+    # and its shading cost more than the lax.cond around them. On the CPU
+    # reference the conds would only add compile time.
+    gated = multi_chunk(wt)
 
     def body(depth, s: _S):
         # Skip whole bounces once every lane has terminated (common for
@@ -557,11 +483,9 @@ def ray_color_dense(wt: WorldTris, textures, ro: V3, rd: V3, rng,
         # --- Fused shadow + next-hit traversal (wgsl:688 + :731-780) ---
         # `last` (static): the final bounce never traces extension rays, so
         # it runs only an R-lane any-hit shadow query instead of the fused
-        # 2R sweep. On gated (multi-tile) scenes the per-bounce populations
-        # are additionally runtime-checked: a lightless scene (`spheres` —
-        # the RTiOW original has no emissive geometry) never has shadow
-        # rays, and the fused sweep's coherence-sort + exact-cull prefix
-        # on all-dead lanes measured ~59 ms/frame there.
+        # 2R sweep. Gated scenes additionally check the per-bounce
+        # populations at run time: a lightless scene never has shadow rays,
+        # and a finished population skips its sweep and shading.
         do_next = (jnp.zeros_like(active) if last
                    else active & (depth < max_depth - 1))
         nR = ro_next.x.shape[0]
@@ -573,44 +497,41 @@ def ray_color_dense(wt: WorldTris, textures, ro: V3, rd: V3, rng,
                             jnp.full(nR, -1, jnp.int32), z, z, z,
                             z3, z3, z3)
 
+        sro = hit_p + geom_n * eps
+        stm = ldist - 2.0 * end_eps
         if last:
-            sro = hit_p + geom_n * eps
-            stm = ldist - 2.0 * end_eps
-            if gated:
-                occluded = jax.lax.cond(
-                    jnp.any(nee_lane),
-                    lambda _: shadow_query(wt, sro, ldir, stm, nee_lane,
-                                           tune=tune),
-                    lambda _: jnp.zeros(nR, bool), None)
-            else:
-                occluded = shadow_query(wt, sro, ldir, stm, nee_lane,
-                                        tune=tune)
+            def shadow_only(sro, ldir, stm, nee_lane):
+                return shadow_query(wt, sro, ldir, stm, nee_lane, tune=tune)
+
+            def shadow_gated(*a):
+                return jax.lax.cond(jnp.any(a[3]), lambda a: shadow_only(*a),
+                                    lambda a: jnp.zeros(nR, bool), a)
+
+            occluded = sweep.on_platform(
+                sro, ldir, stm, nee_lane, xla=shadow_only,
+                kernel=shadow_gated if gated else shadow_only, tune=tune)
             nhit = _zero_hit()
-        elif gated:
-            def _both(_):
-                return fused_shadow_and_next(
-                    wt, textures,
-                    hit_p + geom_n * eps, ldir, ldist - 2.0 * end_eps,
-                    nee_lane, ro_next, rd_next, do_next, tune=tune)
-
-            def _next_only(_):
-                nhit = intersect_and_shade(wt, textures, ro_next, rd_next,
-                                           do_next, tune=tune, level=1)
-                return jnp.zeros(nR, bool), nhit
-
-            def _neither(_):
-                return jnp.zeros(nR, bool), _zero_hit()
-
-            nee_any = jnp.any(nee_lane)
-            occluded, nhit = jax.lax.cond(
-                nee_any | jnp.any(do_next),
-                lambda _: jax.lax.cond(nee_any, _both, _next_only, None),
-                _neither, None)
         else:
-            occluded, nhit = fused_shadow_and_next(
-                wt, textures,
-                hit_p + geom_n * eps, ldir, ldist - 2.0 * end_eps, nee_lane,
-                ro_next, rd_next, do_next, tune=tune)
+            def both(*a):
+                return fused_shadow_and_next(wt, textures, *a, tune=tune)
+
+            def both_gated(*a):
+                nee_lane, ro_n, rd_n, do_n = a[3:]
+
+                def next_only(_):
+                    return jnp.zeros(nR, bool), intersect_and_shade(
+                        wt, textures, ro_n, rd_n, do_n, tune=tune, level=1)
+
+                nee_any = jnp.any(nee_lane)
+                return jax.lax.cond(
+                    nee_any | jnp.any(do_n),
+                    lambda _: jax.lax.cond(nee_any, lambda _: both(*a),
+                                           next_only, None),
+                    lambda _: (jnp.zeros(nR, bool), _zero_hit()), None)
+
+            occluded, nhit = sweep.on_platform(
+                sro, ldir, stm, nee_lane, ro_next, rd_next, do_next,
+                xla=both, kernel=both_gated if gated else both, tune=tune)
         take = nee_lane & ~occluded & (bsdf_pdf > 0.0)
         wgt = jnp.where(
             take,
@@ -713,7 +634,7 @@ def ray_color_dense(wt: WorldTris, textures, ro: V3, rd: V3, rng,
 
         return jax.lax.cond(live.sum() <= r_new, compact, full, s)
 
-    sched = (tune.tail_stages_multitile if wt.featk3.shape[0] > 1
+    sched = (tune.tail_stages_multitile if multi_chunk(wt)
              else tune.tail_stages)
     stages = [sv for sv in sched if 0 < sv[0] < max_depth]
     if R < tune.tail_min_r:
@@ -721,106 +642,8 @@ def ray_color_dense(wt: WorldTris, textures, ro: V3, rd: V3, rng,
     return _run_from(0, state, tuple(stages))
 
 
-def ray_color_dense_rows(wt: WorldTris, textures, ro: V3, rd: V3, rng,
-                         max_depth: int, hit0: DenseHit | None = None,
-                         interpret: bool = False,
-                         tune: TuneConfig = DEFAULT_TUNE):
-    """Row-state bounce loop: ONE Pallas shade kernel + one fused sweep per
-    bounce (ops/shade_rows.py). Estimator-identical to ray_color_dense —
-    same RNG streams, same sequencing — restricted to the 1x1 white texture
-    operand. The ~30 jnp shading fusions per bounce (launch-overhead-bound
-    at 512^2) collapse into the kernel."""
-    from .pallas_dense import pallas_closest_with_row
-    from .shade_rows import LROWS_PAD, pallas_shade
-
-    R = ro.x.shape[0]
-    f32 = jnp.float32
-    if hit0 is None:
-        _, idx0, rowT0 = pallas_closest_with_row(
-            wt, (ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z),
-            active=jnp.ones(R, bool), interpret=interpret, tune=tune)
-        primary_rays = float(R)
-    else:
-        idx0, rowT0 = hit0.wt, hit0.rowT
-        primary_rays = 0.0
-    idxf = idx0.astype(f32)
-    zeros = jnp.zeros((R,), f32)
-    ones = jnp.ones((R,), f32)
-    state = jnp.stack([
-        ones,                                   # 0  active
-        ro.x, ro.y, ro.z, rd.x, rd.y, rd.z,     # 1-6 ray
-        ones, ones, ones,                       # 7-9 throughput
-        zeros, zeros, zeros,                    # 10-12 radiance
-        zeros,                                  # 13 prev_pdf
-        ones,                                   # 14 specular_bounce
-        zeros,                                  # 15 nee_prev
-        zeros, zeros, zeros,                    # 16-18 pending_nee
-        ones,                                   # 19 occluded_prev
-    ])
-    lp = wt.light_rows.shape[0]
-    lrowsT = jnp.pad(wt.light_rows.T.astype(f32),
-                     ((0, 0), (0, LROWS_PAD - lp)))
-    light_count = wt.light_count
-
-    def body(depth, carry):
-        def _iter(carry):
-            state, rng, rowT, idxf, rays = carry
-            out, rng = pallas_shade(state, rng, rowT, idxf, lrowsT, depth,
-                                    light_count, max_depth,
-                                    interpret=interpret)
-            cat = jnp.concatenate
-            ro2 = (cat([out[19], out[1]]), cat([out[20], out[2]]),
-                   cat([out[21], out[3]]))
-            rd2 = (cat([out[22], out[4]]), cat([out[23], out[5]]),
-                   cat([out[24], out[6]]))
-            tmax2 = cat([out[25], jnp.where(out[26] > 0.5, T_MAX, 0.0)])
-            _, idx2, rowT2 = pallas_closest_with_row(
-                wt, ro2, rd2, t_max=tmax2,
-                active=jnp.ones(2 * R, bool), row_from_lane=R,
-                interpret=interpret, tune=tune)
-            occluded = (idx2[:R] >= 0).astype(f32)
-            state_next = cat([out[0:19], occluded[None, :]], axis=0)
-            rays = rays + out[15].sum() + out[26].sum()
-            return (state_next, rng, rowT2, idx2[R:].astype(f32),
-                    rays)  # rowT2 covers lanes [R:] already
-
-        state, _, _, idxf, _ = carry
-        any_live = jnp.any((state[0] > 0.5) & (idxf >= 0.0))
-        return jax.lax.cond(any_live, _iter, lambda c: c, carry)
-
-    state, rng, _, _, rays = jax.lax.fori_loop(
-        0, max_depth, body,
-        (state, rng, rowT0, idxf, jnp.asarray(primary_rays, f32)))
-
-    take = (state[15] > 0.5) & ~(state[19] > 0.5)
-    g = jnp.where(take, 1.0, 0.0)
-    radiance = V3(state[10] + state[16] * g, state[11] + state[17] * g,
-                  state[12] + state[18] * g)
-    return radiance, rng, rays
-
-
-def _rows_path_ok(textures, wt: WorldTris) -> bool:
-    """Opt-in (WRT_SHADE_KERNEL=1): the monolithic shade kernel measured
-    ~1.5-2 ms/frame SLOWER than the jnp pipeline on cornell 512^2 d8
-    (12.8-13.4 vs 11.1-11.3 ms, in-process A/B on v5e) — XLA's fusion
-    scheduling beats Mosaic's codegen for this ~300-op elementwise body
-    (emulated u32 multiplies, per-tile one-hot light fetch, no cross-fusion
-    register reuse). Kept as a tested experimental path; covers the 1x1
-    white placeholder texture only."""
-    import os
-
-    from .shade_rows import LROWS_PAD
-
-    return (os.environ.get("WRT_SHADE_KERNEL") == "1"
-            and _use_pallas()
-            and tex_level(textures, 0).shape == (1, 1, 1, 3)
-            and wt.light_rows.shape[0] <= LROWS_PAD)
-
-
 # Strip-mining knobs (band_target / band_min_r / band_axis) live in
-# ops/tune.TuneConfig. Measured on v5e: 1080p best at 15 bands = 138k
-# lanes (+54% vs unbanded); banding 512^2 measurably HURTS (per-band fixed
-# costs dominate), hence band_min_r.
+# ops/tune.TuneConfig.
 
 
 def _pick_bands(width: int, height: int, tune: TuneConfig) -> int:
@@ -860,10 +683,10 @@ def trace_pixels_dense(wt: WorldTris, textures, camera24, frame_count, jitter,
     the traced-primary path.
 
     Frames larger than tune.band_target lanes are STRIP-MINED into bands
-    processed sequentially inside the jitted step: the per-bounce working
-    set (~30 fusions of (R,) state + (40, R) shade rows) stays VMEM-close
-    at its 512^2-class sweet spot instead of thrashing HBM at 1080p
-    (measured 2.3x per-ray collapse without it). Landscape frames band by
+    processed sequentially inside the jitted step, bounding the per-bounce
+    working set (~30 fusions of (R,) state + (40, R) shade rows) to the
+    size of a 512^2 frame. Whether that pays on a GPU is not measured yet.
+    Landscape frames band by
     COLUMN strips (tune.band_axis) so the dead horizontal periphery collapses
     into all-dead bands whose bounce loops skip entirely; portrait/square
     frames band by rows. Per-pixel RNG and arithmetic depend only on the
@@ -884,9 +707,8 @@ def trace_pixels_dense(wt: WorldTris, textures, camera24, frame_count, jitter,
     if use_cols:
         # Bands as COLUMN strips, lanes column-major inside each strip.
         # Rationale: dead pixels cluster at the horizontal periphery of
-        # landscape frames (a 16:9 view of centered content — measured on
-        # cornell 1080p: 4.86 rays/pixel vs 8.7 at 1:1, i.e. ~45% of lanes
-        # die at bounce 0/1). Row bands all span the full width so no band
+        # landscape frames (a 16:9 view of centered content: on cornell
+        # 1080p ~45% of lanes die at bounce 0/1). Row bands all span the full width so no band
         # ever goes all-dead and every band pays all `max_depth` bounces;
         # column strips isolate the dead periphery and their bounce loops
         # skip via the existing any(active) lax.cond. Per-pixel RNG and
@@ -1018,10 +840,8 @@ def _trace_lanes(wt: WorldTris, textures, camera24, frame_count, jitter,
         hit0 = None
         if seed_wt_idx is not None:
             hit0 = seed_hit_from_wt_idx(wt, textures, seed_wt_idx, ro, d)
-        tracer = (ray_color_dense_rows if _rows_path_ok(textures, wt)
-                  else ray_color_dense)
-        col, _, rays = tracer(wt, textures, ro, d, rng, max_depth,
-                              hit0=hit0, tune=tune)
+        col, _, rays = ray_color_dense(wt, textures, ro, d, rng, max_depth,
+                                       hit0=hit0, tune=tune)
         ax, ay, az, ar = acc
         return (ax + col.x, ay + col.y, az + col.z, ar + rays)
 

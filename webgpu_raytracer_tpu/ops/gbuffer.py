@@ -6,7 +6,7 @@ texture), the octahedral-packed shading normal, the hit triangle and
 instance ids, and normalized depth — the exact MRT layout the reference's
 raytrace kernel reads for bounce 0 (Raytracer.wgsl:617-654).
 
-On TPU there is no rasterizer; a primary-ray cast through the same
+There is no rasterizer here; a primary-ray cast through the same
 ray-traced camera (the reference manually reconstructs that camera's
 view-projection so raster == primary rays, Rasterizer.wgsl:110-150) produces
 the identical hit set, so this pass is implemented with the dense
@@ -21,8 +21,7 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 
-from .dense import dense_closest
-from .dense_trace import intersect_and_shade, _use_pallas
+from .dense_trace import intersect_and_shade
 from .trace import camera_unpack
 from .tune import DEFAULT_TUNE, TuneConfig
 from .v3 import V3
@@ -35,7 +34,7 @@ class GBuffer(NamedTuple):
     tri_idx: jnp.ndarray      # (H, W) i32 topology index (-1 miss)
     inst_idx: jnp.ndarray     # (H, W) i32 instance index (-1 miss)
     depth: jnp.ndarray        # (H, W) f32 in [0, 1]; 1.0 = miss
-    # TPU-native extra id channel: the world-triangle table row, so the
+    # Extra id channel: the world-triangle table row, so the
     # seeded bounce-0 path re-fetches the shade row with one gather instead
     # of the reference's (tri, inst) -> topology -> object-space round trip
     # (Raytracer.wgsl:617-654); information content is identical.

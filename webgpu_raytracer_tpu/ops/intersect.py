@@ -6,8 +6,7 @@ carries a (mode, cursor) state machine — mode 0 walks the TLAS, mode 1 walks a
 BLAS in instance-local space — and all lanes advance in lock-step through one
 masked while-loop with a single node gather per step. Skip pointers are
 pre-absolutized into the merged node array (render/resources.py), so a jump is
-just a cursor assignment; there is no stack and no per-lane control flow,
-which is exactly what the TPU's 8x128 VPU wants.
+just a cursor assignment; there is no stack and no per-lane control flow.
 
 t values are comparable across spaces because instance-local rays keep the
 unnormalized direction (local_rd = inv_rot @ rd), as in the reference.
@@ -95,8 +94,9 @@ def _enter_instance(scene, inst, ro, rd):
     icl = jnp.clip(inst, 0, scene.inst_inv.shape[0] - 1)
     inv = scene.inst_inv[icl]  # (R, 4, 4)
     rot = inv[:, :3, :3]
-    lro = jnp.einsum("rij,rj->ri", rot, ro) + inv[:, :3, 3]
-    lrd = jnp.einsum("rij,rj->ri", rot, rd)
+    # HIGHEST: an f32 product may otherwise run in TF32 on a GPU.
+    lro = jnp.einsum("rij,rj->ri", rot, ro, precision=jax.lax.Precision.HIGHEST) + inv[:, :3, 3]
+    lrd = jnp.einsum("rij,rj->ri", rot, rd, precision=jax.lax.Precision.HIGHEST)
     bstart = scene.inst_blas[icl]
     return lro, lrd, bstart
 

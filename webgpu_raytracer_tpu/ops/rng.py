@@ -31,8 +31,8 @@ def rand_pcg(state: jnp.ndarray):
     """One PCG draw. Returns (new_state, uniform f32 in [0, 1]).
 
     The u32 -> f32 conversion is split 16/16 (both halves exact in f32, one
-    final rounding) — BITWISE identical to a direct convert, but Mosaic
-    (the Pallas TPU compiler) supports only the integer casts involved."""
+    final rounding) — BITWISE identical to a direct convert; kept so the
+    draw uses only 16-bit-exact integer casts."""
     old = state
     state = old * _U32(747796405) + _U32(2891336453)
     word = (state >> ((old >> 28) + _U32(4))) ^ state

@@ -6,7 +6,7 @@ sampling (power heuristic), dedicated any-hit shadow traversal, geometric
 normal guard, Russian roulette after depth 3, and sum+count accumulation.
 
 The reference seeds bounce 0 from a rasterized G-buffer (wgsl:617-654); the
-TPU-native equivalent traces the primary ray with the same camera math, which
+equivalent here traces the primary ray with the same camera math, which
 produces the identical first hit (the G-buffer is a rasterizer-side
 optimization of exactly this intersection). A standalone G-buffer pass with
 the reference's output layout lives in ops/gbuffer.py.
@@ -106,15 +106,16 @@ class HitData(NamedTuple):
 
 def _inv_transpose_dir(inv, n):
     """normalize((vec4(n,0) * inv).xyz): the inverse-transpose normal map."""
-    return normalize(jnp.einsum("ri,rij->rj", n, inv[:, :3, :3]))
+    return normalize(jnp.einsum("ri,rij->rj", n, inv[:, :3, :3],
+                                precision=jax.lax.Precision.HIGHEST))
 
 
 def load_hit(scene, ro, rd, tri_idx, inst_idx) -> HitData:
     """Recompute barycentrics/attributes for a known (tri, inst) hit."""
     icl = jnp.clip(inst_idx, 0, scene.inst_inv.shape[0] - 1)
     inv = scene.inst_inv[icl]
-    lro = jnp.einsum("rij,rj->ri", inv[:, :3, :3], ro) + inv[:, :3, 3]
-    lrd = jnp.einsum("rij,rj->ri", inv[:, :3, :3], rd)
+    lro = jnp.einsum("rij,rj->ri", inv[:, :3, :3], ro, precision=jax.lax.Precision.HIGHEST) + inv[:, :3, 3]
+    lrd = jnp.einsum("rij,rj->ri", inv[:, :3, :3], rd, precision=jax.lax.Precision.HIGHEST)
 
     tcl = jnp.clip(tri_idx, 0, scene.tri_v.shape[0] - 1)
     vidx = scene.tri_v[tcl]
@@ -183,7 +184,7 @@ def _light_tri_world(scene, tri_idx, inst_idx):
     vidx = scene.tri_v[tcl]
 
     def xf(p):
-        return jnp.einsum("rij,rj->ri", m[:, :3, :3], p) + m[:, :3, 3]
+        return jnp.einsum("rij,rj->ri", m[:, :3, :3], p, precision=jax.lax.Precision.HIGHEST) + m[:, :3, 3]
 
     v0 = xf(scene.pos[vidx[:, 0]])
     v1 = xf(scene.pos[vidx[:, 1]])

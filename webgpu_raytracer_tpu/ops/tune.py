@@ -1,17 +1,18 @@
-"""Frozen tuning parameters for the dense TPU tracer.
+"""Frozen tuning parameters for the dense tracer's bounce loop.
 
-Every measured A/B knob of the hot path lives here as a field of one
-hashable, immutable ``TuneConfig``. The config is threaded EXPLICITLY from
-the public tracer entry points (ops.dense_trace.trace_pixels_dense, the
-pallas_dense wrappers, render.renderer.render_step) down to the kernels, so:
+Every knob of the hot path lives here as a field of one hashable, immutable
+``TuneConfig``. The config is threaded EXPLICITLY from the public tracer
+entry points (ops.dense_trace.trace_pixels_dense, render.renderer.render_step)
+down to the sweeps, so:
 
 - jit caches key on it visibly (it rides static closures / static_argnames,
   never module globals read at trace time);
-- tools and tests construct their own ``TuneConfig`` instead of
-  monkeypatching ``ops.pallas_dense`` / ``ops.dense_trace`` attributes.
+- tests and benchmarks construct their own ``TuneConfig`` instead of
+  monkeypatching module attributes.
 
-Defaults are the measured optima on TPU v5e (see tools/README.md for the
-sweeps that chose them). The field comments say what each knob trades.
+The bounce-loop defaults below were chosen on the accelerator the project
+first ran on and have not been swept on a GPU yet. The field comments say
+what each knob trades.
 """
 
 from __future__ import annotations
@@ -20,108 +21,30 @@ from typing import NamedTuple, Tuple
 
 
 class TuneConfig(NamedTuple):
-    # --- two-level culled sweep (ops/pallas_dense._run2) -------------------
-    # Coherence-sort key origin-cell frame: "obox" = live ray-origin bbox,
-    # "sbox" = cluster-geometry bbox. Ray-origin cells cut bounce survivor
-    # work 1.5-2.9x on `spheres` (a giant ground object blows the geometry
-    # bbox so all origins land in 1-2 cells).
-    key_mode: str = "obox"
-    # Direction-bin granularity of the coherence-sort key: 1 = sign octants
-    # (8 bins), n = n bits per normalized component (8^n bins). 2 cuts the
-    # spheres bounce sweep ~10% under exact worklists (finer subcones ->
-    # tighter per-tile unions); 3 loses (key build + sort cost, r4 sweep).
-    dir_bits: int = 2
-    # Origin-cell bits per axis of the coherence-sort key (2..5 span ~3%
-    # on spheres 512^2 d8; 5 marginally best).
-    cell_bits: int = 5
-    # Floor on the obox cell width as a fraction of the SCENE extent
-    # (cell width >= sext / 2^cell_floor_bits): origin spreads below
-    # culling-relevant scale — the thin-lens disk on primary rays — then
-    # collapse to one cell instead of scrambling raster order with
-    # lens-sample noise (measured 2.9-4.3x on the spheres primary sweep).
-    cell_floor_bits: int = 11
-    # Cone-cull granularity (lanes) of the broad phase; tiles OR-reduce
-    # their subtile cones (32-lane subcones cut tile survivors ~3x).
-    subtile: int = 32
-    # Exact per-lane interval broad phase (tile_cluster_worklist_exact):
-    # dense R x Ct sphere-interval tests in XLA instead of subtile cones —
-    # worklists shrink to the exact static union (measured ~2.6x shorter on
-    # spheres bounce tiles), at ~2 ms of fused VPU work per sweep.
-    exact_cull: bool = True
-    # Worklist entries culled+enqueued per survivor-loop iteration: >1
-    # amortizes the ~300-cycle Mosaic while-loop overhead across scans
-    # (exact worklists make most scans enqueue, so keep modest).
-    scan_batch: int = 2
-    # Rays per kernel tile of the two-level sweep (worklist granularity).
-    m_tile2: int = 1024
-    # Survivor-DMA prefetch depth: the scan (cull + DMA-start) runs up to
-    # this many clusters ahead of processing (hides ~1.6 us HBM latency).
-    prefetch_depth: int = 8
-    # Survivors intersected per stacked matmul (pipeline-fill amortization).
-    # Must divide prefetch_depth. 4 amortizes the commit/epilogue another
-    # ~5% over 2 (r4 sweep; short drain batches zero per-position).
-    proc_batch: int = 4
-    # Two-phase SEEDED sweep (0 = off): phase A processes only the nearest
-    # `seed_k` worklist entries per tile (cheap — the near-to-far order's
-    # head), then the exact broad phase re-runs with each lane's phase-A
-    # hit t as its interval cap and phase B sweeps the re-culled (much
-    # shorter) worklists starting from the seeded accumulators. Rationale:
-    # the in-kernel running-best cull cannot shrink the SCAN (it must visit
-    # every worklist entry to cull it), while the XLA-side dense re-cull
-    # tests pairs ~100x cheaper per test — so discovering a near hit first
-    # and re-culling per lane attacks both halves of the survivor loop.
-    seed_k: int = 0
-    # Narrow-phase kernel for multi-tile scenes: "scan" = the prefetch-queue
-    # survivor loop (_kernel2: per-1024-lane-tile worklists, in-kernel
-    # interval cull + sorted early exit); "jobs" = the job-stream kernel
-    # (_kernel3: per-m_tile3-lane-GROUP exact worklists consumed straight
-    # through with pipelined DMA, no in-kernel culling). Rationale
-    # (tools/job_stats.py, round 5): the per-lane survivor floor on
-    # `spheres` bounce tiles is ~15 clusters while a 1024-lane tile's union
-    # is ~153 — finer groups cut total lane-pairs 2.6x at g=128, and with
-    # the scan gone the kernel's whole cost is the narrow-phase epilogue.
-    # In-kernel tightening is NOT worth re-adding: oracle per-lane t-caps
-    # shrink unions only ~17% (same tool), which is why the seeded
-    # two-phase sweep measured 912 vs 764 ms/frame. Frame A/B after the
-    # cell-floor fix (spheres 512^2 d8): scan 632 ms, jobs g=128 494 ms,
-    # jobs g=256 506 ms -> jobs/128 is the default.
-    narrow: str = "jobs"
-    # Lanes per ray group of the job-stream kernel (worklist granularity).
-    m_tile3: int = 128
-    # Job-stream broad phase: 0 = exact per-lane sphere-interval tests
-    # (R x Ct dense, ~16 ms/sweep at 512^2 x 2009); n > 0 = bounding-cone
-    # tests at n-lane subgroups (R/n x Ct), OR-reduced to m_tile3 groups —
-    # cheaper but conservative-looser worklists.
-    cull_sub: int = 0
-    # Measurement-only kernel ablations ("" = off; "noproc" = cull+DMA only;
-    # "nocull" = process every reachable survivor; "allwin" = windowed
-    # epilogue code with window skipping disabled). These are research
-    # switches for tools/debug_spheres.py A/Bs, not product knobs.
-    debug2: str = ""
-
-    # --- bounce loop (ops/dense_trace) --------------------------------------
     # Tail-compaction schedule ((depth, div), ...): from bounce `depth`
     # onward live lanes run in a static ceil(R/div) buffer. Depths ascend;
     # budgets are relative to the ORIGINAL R.
     tail_stages: Tuple[Tuple[int, int], ...] = ((5, 16),)
-    # Schedule for MULTI-TILE (two-level-sweep) scenes: open scenes like
-    # `spheres` lose most lanes to escape by bounce 2 (measured live ~27%),
-    # so an early stage pays there (frame 710 -> 597 ms, r4) while closed
-    # single-tile scenes overflow it and eat ~1.2 ms/frame of cond overhead
-    # (cornell 512: 8.0 -> 9.1 ms) — hence the static split on tile count.
+    # Schedule for scenes of more than one 128-triangle chunk: open scenes
+    # lose most lanes to escape by bounce 2, so an early stage pays there,
+    # while closed single-chunk scenes overflow it and pay its cond.
     tail_stages_multitile: Tuple[Tuple[int, int], ...] = ((2, 4), (5, 16))
     # Round tail budgets up to kernel-tile-friendly multiples.
     tail_align: int = 2048
     # No tail compaction below this lane count (small frames are
     # launch-bound; compaction overhead loses).
     tail_min_r: int = 100000
-    # Strip-mining: lanes per band at large R (1080p optimum: ~138k).
+    # Strip-mining: lanes per band at large R.
     band_target: int = 140000
     # Frames at or below this lane count run unbanded.
     band_min_r: int = 1 << 19
     # "auto": COLUMN bands for landscape frames (dead periphery collapses
     # into all-dead bands), row bands otherwise; "rows"/"cols" force.
     band_axis: str = "auto"
+    # True runs the plain XLA sweep (ops/dense.py) on every platform instead
+    # of the GPU kernel: the reference that the kernel is compared and timed
+    # against (chip_smoke.py, bench.py). Never set on the product path.
+    reference_sweep: bool = False
 
 
 DEFAULT_TUNE = TuneConfig()

@@ -1,9 +1,8 @@
 """Component-SoA 3-vectors: (R,) lanes per component.
 
-On TPU, a (R, 3) array puts the 3-wide axis in the 128-lane minor dimension
-(2% utilization) and every minor-dim slice is a relayout. The hot path
-therefore keeps each vector as three independent (R,) arrays — perfect
-8x128 tiling, every op a full-width VPU op, zero relayouts.
+The dense path keeps each vector as three independent (R,) arrays, so every
+elementwise op runs over contiguous lanes and no (R, 3) minor-dim slice is
+needed.
 """
 
 from __future__ import annotations
@@ -87,11 +86,6 @@ def splat(v, like) -> V3:
 def from_rows(arr) -> V3:
     """(R, 3) -> V3 of (R,). One relayout; use only at boundaries."""
     return V3(arr[:, 0], arr[:, 1], arr[:, 2])
-
-
-def to_rows(a: V3):
-    """V3 -> (R, 3). One relayout; use only at boundaries."""
-    return jnp.stack([a.x, a.y, a.z], axis=-1)
 
 
 def reflect(i: V3, n: V3) -> V3:

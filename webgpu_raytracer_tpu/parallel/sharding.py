@@ -1,10 +1,10 @@
 """Multi-chip rendering: tile and sample sharding over a jax.sharding.Mesh.
 
-The TPU-native replacement for the reference's multi-browser distribution
+The multi-device replacement for the reference's multi-browser distribution
 (SURVEY.md §5.7/§5.8, BASELINE config 5): instead of WebRTC frame-batch jobs,
-the pixel grid is sharded over chips (`tile`) or the same pixels are rendered
-with disjoint RNG sample streams and the accumulator is psum-reduced over ICI
-(`sample`). Both modes are bit-deterministic: the counter-based per-(pixel,
+the pixel grid is sharded over devices (`tile`) or the same pixels are
+rendered with disjoint RNG sample streams and the accumulator is
+psum-reduced over the interconnect (`sample`). Both modes are bit-deterministic: the counter-based per-(pixel,
 sample) RNG (ops/rng.py) makes the sharded result equal to the single-chip
 result regardless of the device layout.
 
@@ -72,7 +72,7 @@ def tile_sample_sharded_step(mesh: Mesh, width: int, height: int,
                              sample_axis: str = "sample",
                              backend: str = "bvh"):
     """2D mesh: rows sharded over `tile_axis`, sample streams over
-    `sample_axis` with a psum over ICI — the full BASELINE config-5 layout.
+    `sample_axis` with a psum over the interconnect — the full BASELINE config-5 layout.
 
     accum is (H*W, 4) sharded on rows over tile_axis and replicated over
     sample_axis.
@@ -108,7 +108,7 @@ def tile_sample_sharded_step(mesh: Mesh, width: int, height: int,
 
 def sample_sharded_step(mesh: Mesh, width: int, height: int, spp_total: int,
                         max_depth: int, backend: str = "bvh"):
-    """Returns a jitted step: sample streams sharded, psum over ICI.
+    """Returns a jitted step: sample streams sharded, psum over the interconnect.
 
     Every chip renders the full pixel grid with a disjoint slice of the
     sample indices; the per-chip sums are psum-reduced so each chip holds the

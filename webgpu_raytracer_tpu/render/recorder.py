@@ -10,14 +10,13 @@ Capability parity: reference src/recorder/VideoRecorder.ts —
   device renders the current one (:183-227)
 - adaptive sample batching targeting ~100 ms per dispatch, cap 50 (:270-317)
 
-Frames are PNG-encoded (the WebCodecs VP9 encoder has no TPU-host analogue;
-PNG chunks keep the distributed protocol's chunk semantics; ffmpeg muxes the
+Frames are PNG-encoded (the WebCodecs VP9 encoder is a browser API; PNG
+chunks keep the distributed protocol's chunk semantics; ffmpeg muxes the
 final video when present).
 """
 
 from __future__ import annotations
 
-import io
 import os
 import shutil
 import subprocess
@@ -28,6 +27,7 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from ..config import RenderConfig
+from ..utils.png import encode_png
 
 
 @dataclass
@@ -59,14 +59,6 @@ class AbortFlag:
     @property
     def aborted(self):
         return self._aborted
-
-
-def _encode_png(img: np.ndarray) -> bytes:
-    from PIL import Image
-
-    buf = io.BytesIO()
-    Image.fromarray(img).save(buf, format="PNG")
-    return buf.getvalue()
 
 
 class VideoRecorder:
@@ -167,7 +159,7 @@ class VideoRecorder:
                     frame_index=frame_idx,
                     timestamp_us=int(frame_idx * 1_000_000 / fps),
                     key_frame=(frame_idx % fps == 0),  # keyframe/second
-                    data=_encode_png(img),
+                    data=encode_png(img),
                 )
             )
             if on_progress:

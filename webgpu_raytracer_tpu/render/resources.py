@@ -1,7 +1,7 @@
 """Device-side scene resources.
 
 Unpacks the scene compiler's flat buffers (the exact contract of SURVEY.md
-§2.2 / reference src/renderer/ResourceManager.ts) into TPU-friendly SoA
+§2.2 / reference src/renderer/ResourceManager.ts) into SoA device
 arrays, and applies the static-shape padding policy that keeps jit caches
 stable across animated rebuilds (the analogue of the reference's grow-only
 GPU buffer reallocation, ResourceManager.ts:210-283).

@@ -1,7 +1,7 @@
 """Tracing / profiling helpers.
 
 The reference's observability is a 1 Hz fps/ms overlay + console logs
-(SURVEY.md §5.1); the TPU framework adds real per-pass timing, rays/sec
+(SURVEY.md §5.1); this framework adds real per-pass timing, rays/sec
 accounting, and jax.profiler trace capture.
 """
 

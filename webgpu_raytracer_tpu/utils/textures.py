@@ -2,9 +2,9 @@
 
 Parity with reference ResourceManager.ts:153-208: every texture is decoded
 (createImageBitmap there, PIL here) and force-resized to one
-TEX_SIZE x TEX_SIZE layer of a single texture array; decode failures fall
-back to a magenta-checker-free solid fallback like the reference's fallback
-bitmaps.
+TEX_SIZE x TEX_SIZE layer of a single texture array; an image that fails to
+decode falls back to a solid fallback like the reference's fallback bitmaps.
+PIL is imported only when a scene has textures, and a missing PIL raises.
 """
 
 from __future__ import annotations
@@ -18,15 +18,15 @@ TEX_SIZE = 1024
 
 def decode_texture(data: bytes, size: int = TEX_SIZE) -> np.ndarray:
     """Decode one image to (size, size, 3) float32 in [0, 1]."""
-    try:
-        from PIL import Image
+    from PIL import Image
 
+    try:
         img = Image.open(io.BytesIO(data)).convert("RGB")
         img = img.resize((size, size), Image.BILINEAR)
-        return np.asarray(img, np.float32) / 255.0
-    except Exception:
+    except (OSError, ValueError):  # not a decodable image
         # fallback texture (reference ResourceManager.ts:171-177)
         return np.full((size, size, 3), 0.8, np.float32)
+    return np.asarray(img, np.float32) / 255.0
 
 
 def decode_world_textures(world, size: int = TEX_SIZE) -> np.ndarray | None:
@@ -47,13 +47,10 @@ def decode_world_textures(world, size: int = TEX_SIZE) -> np.ndarray | None:
 def pack_quad_table(tex: np.ndarray) -> np.ndarray:
     """(K, S, S, 3) f32 in [0,1] -> (K, S, S, 4) uint32 bilinear quad table.
 
-    TPU-native texture layout: XLA's gather fast path is "one short row per
-    index" — a (1, C<=16B) slice costs ~9 ms at 2M lanes where a (2,2,3)
-    windowed gather costs 4+ SECONDS (measured, v5e). So the four bilinear
-    corners are pre-baked per texel: word c of row (k, y, x) packs corner c
-    of the quad at (y, x) as r<<16 | g<<8 | b u8 codes (repeat-mode
-    neighbors baked via roll), making a bilinear sample ONE row gather +
-    VPU bit unpacking. u8 codes reconstruct the reference's rgba8unorm
+    The four bilinear corners are pre-baked per texel: word c of row
+    (k, y, x) packs corner c of the quad at (y, x) as r<<16 | g<<8 | b u8
+    codes (repeat-mode neighbors baked via roll), making a bilinear sample
+    ONE 16-byte row gather + bit unpacking. u8 codes reconstruct the reference's rgba8unorm
     texels exactly (code/255 at f32); memory is 16 B/texel (vs 12 for raw
     f32 rgb).
     """
@@ -70,55 +67,39 @@ def pack_quad_table(tex: np.ndarray) -> np.ndarray:
 
 
 # Secondary-bounce mip size; None = mip disabled (both pyramid levels alias
-# the full-resolution table).
-#
-# History: a PLAIN-GATHER 256^2 mip was a measured negative (round 4, v5e,
-# textured GLB 1080p d8): 58.7 Mrays/s vs 95.1 for level-0-everywhere —
-# XLA's gather emitter is ~1.6x SLOWER per row on small operands, the
-# opposite of the microbench extrapolation (tools/profile_textured.py).
-# Round 5 therefore serves the mip through the KRONECKER ONE-HOT fetch
-# instead (ops/fetch.TexKron + pallas_fetch_kron): the 128^2 table lives in
-# VMEM as bf16x3 planes and every sample is two narrow one-hots + an MXU
-# matmul — no gather emitter at all. Level 0 (bounce 0 / G-buffer primary
-# hits) still samples the full-resolution table with the XLA row gather,
-# like the reference's LOD-0 sampling (Raytracer.wgsl:666-672).
+# the full-resolution table). Bounces >= 1 sample a box-filtered mip of this
+# size instead of level 0: a departure from the reference, which samples
+# LOD 0 at every bounce (Raytracer.wgsl:666-672). Level 0 (bounce 0 /
+# G-buffer primary hits) samples the full-resolution table like the
+# reference.
 SECONDARY_MIP = 128
 
 
 def build_quad_pyramid(tex: np.ndarray,
                        mip: int | None = SECONDARY_MIP) -> tuple:
-    """(K, S, S, 3) f32 -> (level0, level1) texture levels.
+    """(K, S, S, 3) f32 -> (level0, level1) packed quad tables.
 
     level0 is pack_quad_table at full resolution (primary hits / G-buffer
-    seeded bounce 0); level1 is a box-downsampled mip for bounces >= 1
-    packed as an ops/fetch.TexKron (Kronecker-fetch operand) when it fits
-    the kron row cap, or level0 again when mip is None / oversized.
+    seeded bounce 0); level1 is the box-downsampled mip for bounces >= 1,
+    or level0 again when mip is None or not smaller than the texture.
     """
     l0 = pack_quad_table(tex)
     k, s = tex.shape[0], tex.shape[1]
     if mip is None or s <= mip:
         return l0, l0
-    from ..ops.fetch import KRON_MAX_ROWS, build_tex_kron
-
-    if k * mip * mip > KRON_MAX_ROWS:
-        return l0, l0
     f = s // mip
     small = tex[:, : mip * f, : mip * f].reshape(k, mip, f, mip, f, 3) \
         .mean(axis=(2, 4))
-    return l0, build_tex_kron(pack_quad_table(small))
+    return l0, pack_quad_table(small)
 
 
 def device_pyramid(pyr: tuple):
-    """Move build_quad_pyramid's numpy levels to device arrays (TexKron
-    levels member-wise); a shared level is uploaded once."""
+    """Move build_quad_pyramid's numpy levels to device arrays; a shared
+    level is uploaded once."""
     import jax.numpy as jnp
-
-    from ..ops.fetch import TexKron
 
     l0, l1 = pyr
     d0 = jnp.asarray(l0)
     if l1 is l0:
         return d0, d0
-    if isinstance(l1, TexKron):
-        return d0, TexKron(*(jnp.asarray(a) for a in l1))
     return d0, jnp.asarray(l1)
